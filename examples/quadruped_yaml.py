@@ -10,8 +10,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.models.quadruped import config, controller
+import altro_mpc as at
+from altro_mpc.models.quadruped import config, controller
 
 YAML_TEMPLATE = """
 N: 15

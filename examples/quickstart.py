@@ -1,5 +1,5 @@
 """Quickstart: the five benchmark problems end-to-end on whatever backend
-JAX finds (CPU or TPU). Run: python examples/quickstart.py [--fast]
+JAX finds (CPU or GPU). Run: python examples/quickstart.py [--fast]
 """
 import argparse
 import os
@@ -13,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import altro_tpu as at
-from altro_tpu.mpc import gen_tracking_mpc, make_mpc_step
-from altro_tpu.models import flexible_satellite as fs
-from altro_tpu.models import grasp, rocket
-from altro_tpu.models import random_linear as rl
+import altro_mpc as at
+from altro_mpc.mpc import gen_tracking_mpc, make_mpc_step
+from altro_mpc.models import flexible_satellite as fs
+from altro_mpc.models import grasp, rocket
+from altro_mpc.models import random_linear as rl
 
 
 def banner(s):
@@ -79,7 +79,7 @@ def main():
           f"max|u|={float(jnp.max(jnp.abs(fsol.U))):.4f} (bound 0.01)")
 
     banner("5. quadruped trot (benchmark 5)")
-    from altro_tpu.models.quadruped import config, controller
+    from altro_mpc.models.quadruped import config, controller
     cfg = config.MPCConfig()
     res = jax.jit(lambda: controller.simulate(
         cfg, at.SolverOptions(penalty_initial=10.0, penalty_scaling=100.0,

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.cones import Cone
-from altro_tpu.solver import admm_conic, admm_qp
-from altro_tpu.transcribe import BatchConic, BatchQP
+import altro_mpc as at
+from altro_mpc.cones import Cone
+from altro_mpc.solver import admm_conic, admm_qp
+from altro_mpc.transcribe import BatchConic, BatchQP
 
 
 def test_box_qp_analytic():
@@ -54,7 +54,7 @@ def test_conic_matches_qp_on_box():
 
 def test_conic_soc_projection_problem():
     # min 0.5||x - c||^2 s.t. ||x[:2]|| <= x[2]  ->  x* = proj_SOC(c)
-    from altro_tpu.cones import project_soc
+    from altro_mpc.cones import project_soc
     c = jnp.array([3.0, 4.0, 1.0])
     # SOC membership of x itself: b - Ax = x in SOC -> A = -I, b = 0
     prob = BatchConic(P=jnp.eye(3), q=-c, A=-jnp.eye(3), b=jnp.zeros(3),
@@ -78,7 +78,7 @@ def test_transcription_qp_matches_altro_unconstrained():
 
     sol_altro = at.solve(prob, at.SolverOptions(cost_tolerance=1e-10,
                                                 gradient_tolerance=1e-10))
-    from altro_tpu.transcribe import to_batch_qp
+    from altro_mpc.transcribe import to_batch_qp
     qp = to_batch_qp(prob)
     sol_qp = admm_qp.solve(admm_qp.setup(qp), eps_abs=1e-9)
     Xq, Uq = admm_qp.extract_traj(qp, sol_qp.x)

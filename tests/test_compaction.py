@@ -13,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import altro_tpu as at
-from altro_tpu.models import random_linear, rocket
-from altro_tpu.mpc import (gen_tracking_mpc, make_mpc_step,
+import altro_mpc as at
+from altro_mpc.models import random_linear, rocket
+from altro_mpc.mpc import (gen_tracking_mpc, make_mpc_step,
                            make_mpc_step_compacted, run_compacted_step)
-from altro_tpu.solver import altro as S
+from altro_mpc.solver import altro as S
 
 
 def test_partial_resume_exact_conic():
@@ -103,7 +103,7 @@ def test_device_compacted_two_level_matches_plain():
     """The device-side compacted step with a nested compaction schedule
     (capped resume + sub-block gather) is bit-identical to the plain
     batched step — caps only pause lanes, never change their iterates."""
-    from altro_tpu.mpc import make_mpc_step_device_compacted
+    from altro_mpc.mpc import make_mpc_step_device_compacted
 
     rng = np.random.default_rng(3)
     prob = random_linear.gen_random_linear(rng, 6, 3, 41, dtype=jnp.float64)
@@ -143,7 +143,7 @@ def test_device_compacted_two_level_matches_plain():
 def test_device_compacted_track_mode_matches_plain():
     """warm_start="track" (tracking-seeded solves, the r5 rocket config
     mode) composes with device-side compaction bit-identically too."""
-    from altro_tpu.mpc import make_mpc_step_device_compacted
+    from altro_mpc.mpc import make_mpc_step_device_compacted
 
     rng = np.random.default_rng(4)
     prob = random_linear.gen_random_linear(rng, 6, 3, 41, dtype=jnp.float64)

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import cones
-from altro_tpu.cones import Cone
+from altro_mpc import cones
+from altro_mpc.cones import Cone
 
 
 def test_soc_projection_cases():
@@ -94,7 +94,7 @@ def test_soc_curvature_factors_reconstruct_jacobian():
 def test_al_terms_structured_factored_soc_matches_dense():
     # a wide SOC block (p >= 12) takes the 'diag_lr' path; its contracted
     # curvature must equal the dense al_terms curvature
-    from altro_tpu import constraints as CN
+    from altro_mpc import constraints as CN
 
     key = jax.random.PRNGKey(7)
     N, n, m, p = 5, 4, 3, 13

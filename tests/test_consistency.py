@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.costs import retarget_tracking, tracking_objective
-from altro_tpu.mpc import shift_fill, track_window
-from altro_tpu.models import random_linear as rl
-from altro_tpu.transcribe import to_batch_conic, to_batch_qp
+import altro_mpc as at
+from altro_mpc.costs import retarget_tracking, tracking_objective
+from altro_mpc.mpc import shift_fill, track_window
+from altro_mpc.models import random_linear as rl
+from altro_mpc.transcribe import to_batch_conic, to_batch_qp
 
 
 def _problem(N=13, n=5, m=2, seed=0):

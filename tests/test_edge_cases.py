@@ -3,10 +3,10 @@ grasp visualization smoke test."""
 import jax.numpy as jnp
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.cones import Cone
-from altro_tpu.solver import admm_conic
-from altro_tpu.transcribe import to_batch_conic
+import altro_mpc as at
+from altro_mpc.cones import Cone
+from altro_mpc.solver import admm_conic
+from altro_mpc.transcribe import to_batch_conic
 
 
 def test_masked_soc_rows_do_not_constrain():
@@ -47,7 +47,7 @@ def test_masked_soc_rows_do_not_constrain():
 
 
 def test_grasp_visualization_smoke(tmp_path):
-    from altro_tpu.models import grasp, grasp_viz
+    from altro_mpc.models import grasp, grasp_viz
 
     N, tf = 31, 3.0
     o = grasp.make_grasp_object(N, tf)

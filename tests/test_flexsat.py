@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.models import flexible_satellite as fs
-from altro_tpu.solver import admm_qp
-from altro_tpu.transcribe import to_batch_qp
+import altro_mpc as at
+from altro_mpc.models import flexible_satellite as fs
+from altro_mpc.solver import admm_qp
+from altro_mpc.transcribe import to_batch_qp
 
 OPTS = at.SolverOptions(cost_tolerance=1e-6, gradient_tolerance=1e-8,
                         constraint_tolerance=1e-6, penalty_initial=100.0,

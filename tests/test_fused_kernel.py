@@ -1,14 +1,35 @@
-"""Parity: fused expansion+backward kernel vs the composed XLA path
-(interpret mode on CPU; the compiled path is exercised by bench.py)."""
+"""Parity: the kernel path of the expansion + backward boundary (XLA AL
+expansion, then the Triton Riccati backward kernel in interpret mode) vs
+the composed XLA path. The compiled kernel runs in chip_smoke.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
-import altro_tpu as at
-from altro_tpu.models import random_linear as rl
-from altro_tpu.ops.riccati_fused import fused_expand_backward
-from altro_tpu.solver.altro import _expand_backward_base
+import altro_mpc as at
+from altro_mpc.models import random_linear as rl
+from altro_mpc.ops.riccati import batched_backward
+from altro_mpc.solver.altro import _expand_backward_base, expand_lane
+
+
+def _kernel_path(pm, X, U, lams, rhos, reg):
+    exp = jax.vmap(lambda *a: expand_lane(pm.cost, pm.constraints, *a))(
+        X, U, lams, rhos)
+    return batched_backward(pm.dynamics.A, pm.dynamics.B, *exp, reg,
+                            interpret=True)
+
+
+def _check(pm, X, U, lams, rhos, reg):
+    K_f, d_f, dV1_f, dV2_f = _kernel_path(pm, X, U, lams, rhos, reg)
+    K_b, d_b, dV1_b, dV2_b = jax.vmap(
+        _expand_backward_base,
+        in_axes=(None, None, None, None, 0, 0, 0, 0, 0))(
+        pm.cost, pm.dynamics.A, pm.dynamics.B, pm.constraints,
+        X, U, lams, rhos, reg)
+
+    np.testing.assert_allclose(K_f, K_b, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(d_f, d_b, atol=5e-4, rtol=1e-3)
+    np.testing.assert_allclose(dV1_f, dV1_b, rtol=2e-3, atol=1e-3)
+    np.testing.assert_allclose(dV2_f, dV2_b, rtol=2e-3, atol=1e-3)
 
 
 def test_fused_matches_base():
@@ -30,29 +51,15 @@ def test_fused_matches_base():
     rhos = tuple(jnp.full((Bt,) + d.rho.shape, 10.0, jnp.float32)
                  for d in duals)
     reg = jnp.zeros((Bt,), jnp.float32)
-
-    K_f, d_f, dV1_f, dV2_f = fused_expand_backward(
-        prob_mpc.cost, prob_mpc.dynamics.A, prob_mpc.dynamics.B,
-        prob_mpc.constraints, X, U, lams, rhos, reg, interpret=True)
-
-    K_b, d_b, dV1_b, dV2_b = jax.vmap(
-        _expand_backward_base,
-        in_axes=(None, None, None, None, 0, 0, 0, 0, 0))(
-        prob_mpc.cost, prob_mpc.dynamics.A, prob_mpc.dynamics.B,
-        prob_mpc.constraints, X, U, lams, rhos, reg)
-
-    np.testing.assert_allclose(K_f, K_b, atol=5e-4, rtol=1e-3)
-    np.testing.assert_allclose(d_f, d_b, atol=5e-4, rtol=1e-3)
-    np.testing.assert_allclose(dV1_f, dV1_b, rtol=2e-3, atol=1e-3)
-    np.testing.assert_allclose(dV2_f, dV2_b, rtol=2e-3, atol=1e-3)
+    _check(prob_mpc, X, U, lams, rhos, reg)
 
 
 def test_fused_matches_base_soc_rocket():
-    """SOC cones through the fused kernel (rocket thrust/angle/glideslope:
+    """SOC cones on the kernel path (rocket thrust/angle/glideslope:
     control SOC, state SOC, all three projection cases exercised by random
     multipliers) vs the composed XLA path."""
-    from altro_tpu.models import rocket
-    from altro_tpu.mpc import gen_tracking_mpc
+    from altro_mpc.models import rocket
+    from altro_mpc.mpc import gen_tracking_mpc
 
     Bt = 4
     rng = np.random.default_rng(1)
@@ -77,17 +84,4 @@ def test_fused_matches_base_soc_rocket():
     rhos = tuple(jnp.full((Bt,) + d.rho.shape, 10.0, jnp.float32)
                  for d in duals)
     reg = jnp.full((Bt,), 1.0, jnp.float32)
-
-    K_f, d_f, dV1_f, dV2_f = fused_expand_backward(
-        pm.cost, pm.dynamics.A, pm.dynamics.B, pm.constraints,
-        X, U, lams, rhos, reg, interpret=True)
-    K_b, d_b, dV1_b, dV2_b = jax.vmap(
-        _expand_backward_base,
-        in_axes=(None, None, None, None, 0, 0, 0, 0, 0))(
-        pm.cost, pm.dynamics.A, pm.dynamics.B, pm.constraints,
-        X, U, lams, rhos, reg)
-
-    np.testing.assert_allclose(K_f, K_b, atol=5e-4, rtol=1e-3)
-    np.testing.assert_allclose(d_f, d_b, atol=5e-4, rtol=1e-3)
-    np.testing.assert_allclose(dV1_f, dV1_b, rtol=2e-3, atol=1e-3)
-    np.testing.assert_allclose(dV2_f, dV2_b, rtol=2e-3, atol=1e-3)
+    _check(pm, X, U, lams, rhos, reg)

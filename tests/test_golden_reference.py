@@ -14,7 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
+import altro_mpc as at
 
 REF = "/root/reference/rocket.jld2"
 
@@ -43,8 +43,8 @@ def test_reference_fixture_readable():
 def test_our_tolerance_convergence_matches_reference_shape():
     """Our ALTRO error-vs-tolerance curve shows the same decay the reference
     recorded for its ALTRO (0.53 at 1e-2 down to <1e-3 by 1e-6)."""
-    from altro_tpu.models import rocket
-    from altro_tpu.mpc import gen_tracking_mpc, run_mpc_lockstep_conic
+    from altro_mpc.models import rocket
+    from altro_mpc.mpc import gen_tracking_mpc, run_mpc_lockstep_conic
 
     N = 301
     prob = rocket.rocket_problem(N=N, tf=(N - 1) * 0.05)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.models import grasp
-from altro_tpu.mpc import gen_tracking_mpc, run_mpc_lockstep_conic
+import altro_mpc as at
+from altro_mpc.models import grasp
+from altro_mpc.mpc import gen_tracking_mpc, run_mpc_lockstep_conic
 
 COLD_OPTS = at.SolverOptions(
     cost_tolerance=1e-6, gradient_tolerance=1e-8, constraint_tolerance=1e-6,

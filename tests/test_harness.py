@@ -1,7 +1,7 @@
 """Benchmark harness unit tests."""
 import numpy as np
 
-from altro_tpu.bench.harness import (benchmark_fn, boxplot_stats,
+from altro_mpc.bench.harness import (benchmark_fn, boxplot_stats,
                                      load_results, save_results)
 
 

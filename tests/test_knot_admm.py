@@ -9,13 +9,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.solver import admm_conic, admm_qp, knot_admm
-from altro_tpu.transcribe import to_batch_conic, to_batch_qp
+import altro_mpc as at
+from altro_mpc.solver import admm_conic, admm_qp, knot_admm
+from altro_mpc.transcribe import to_batch_conic, to_batch_qp
 
 
 def test_knot_matches_dense_on_random_linear():
-    from altro_tpu.models import random_linear as rl
+    from altro_mpc.models import random_linear as rl
     rng = np.random.default_rng(7)
     prob = rl.gen_random_linear(rng, 8, 3, 21)
     X_track, U_track = rl.gen_trajectory(rng, prob, 21)
@@ -34,7 +34,7 @@ def test_knot_matches_dense_on_random_linear():
 def test_knot_matches_dense_conic_on_grasp():
     """SOC path: torque-balance equality + max-force inequality + two SOC
     friction cones per knot."""
-    from altro_tpu.models import grasp
+    from altro_mpc.models import grasp
     N, tf = 31, 3.0
     o = grasp.make_grasp_object(N, tf)
     prob = grasp.grasp_problem(o, N, tf)
@@ -51,7 +51,7 @@ def test_knot_matches_dense_conic_on_grasp():
 def test_knot_refactor_matches_fresh_setup():
     """refactor() (setup-once scalings + banded refactor) must solve a
     perturbed instance to the same answer as a fresh setup()."""
-    from altro_tpu.models import random_linear as rl
+    from altro_mpc.models import random_linear as rl
     rng = np.random.default_rng(3)
     prob = rl.gen_random_linear(rng, 6, 2, 15)
     X_track, U_track = rl.gen_trajectory(rng, prob, 15)
@@ -76,8 +76,8 @@ def test_knot_refactor_matches_fresh_setup():
 
 
 def test_knot_vmaps_over_scenarios():
-    """The solver must vmap over a batch of x0 (the TPU scenario axis)."""
-    from altro_tpu.models import random_linear as rl
+    """The solver must vmap over a batch of x0 (the batched scenario axis)."""
+    from altro_mpc.models import random_linear as rl
     rng = np.random.default_rng(11)
     prob = rl.gen_random_linear(rng, 6, 2, 15)
     X_track, U_track = rl.gen_trajectory(rng, prob, 15)

@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import altro_tpu as at
-from altro_tpu.models import random_linear as rl
-from altro_tpu.native import qp as native_qp
+import altro_mpc as at
+from altro_mpc.models import random_linear as rl
+from altro_mpc.native import qp as native_qp
 
 pytestmark = pytest.mark.skipif(not native_qp.available(),
                                 reason="native toolchain unavailable")
@@ -48,8 +48,8 @@ def test_cold_solve_matches_jax():
 def test_warm_mpc_sequence_matches_jax():
     """Three warm-started MPC re-solves in lockstep (shifted U/lam/X and a
     retargeted window), native vs JAX — the run_MPC hot line."""
-    from altro_tpu.costs import retarget_tracking
-    from altro_tpu.mpc import shift_fill, track_window
+    from altro_mpc.costs import retarget_tracking
+    from altro_mpc.mpc import shift_fill, track_window
 
     pm, X_track, U_track = _flagship()
     N = pm.N
@@ -90,7 +90,7 @@ def test_soc_solve_matches_jax():
     """SOC cones (rocket thrust/angle/glideslope) through the dense
     projection-Jacobian branch: identical iterates vs the JAX solver even on
     a deliberately hard window (equal iteration counts, equal violation)."""
-    from altro_tpu.models import rocket
+    from altro_mpc.models import rocket
 
     N = 41
     prob = rocket.rocket_problem(N=N, tf=(N - 1) * 0.05, dtype=jnp.float64)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.native import available, solve_conic, solve_qp
-from altro_tpu.solver import admm_conic, admm_qp
-from altro_tpu.transcribe import to_batch_conic, to_batch_qp
+import altro_mpc as at
+from altro_mpc.native import available, solve_conic, solve_qp
+from altro_mpc.solver import admm_conic, admm_qp
+from altro_mpc.transcribe import to_batch_conic, to_batch_qp
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="g++ not available to build native lib")
@@ -24,7 +24,7 @@ def test_native_box_qp():
 
 def test_native_matches_jax_admm_on_random_linear():
     """Three-way oracle: ALTRO (JAX), ADMM QP (JAX), ADMM QP (C++)."""
-    from altro_tpu.models import random_linear as rl
+    from altro_mpc.models import random_linear as rl
     rng = np.random.default_rng(7)
     prob = rl.gen_random_linear(rng, 8, 3, 21)
     X_track, U_track = rl.gen_trajectory(rng, prob, 21)
@@ -94,8 +94,8 @@ def rocket_window():
     """Rocket SOC MPC-window instance — the program class the reference
     hands ECOS every MPC step (simple_rocket.jl:106-216). Built from a
     short cold solve used purely as the tracking reference."""
-    from altro_tpu.models import rocket
-    from altro_tpu.mpc import gen_tracking_mpc
+    from altro_mpc.models import rocket
+    from altro_mpc.mpc import gen_tracking_mpc
     N = 61
     prob = rocket.rocket_problem(N=N, tf=(N - 1) * 0.05)
     cold = at.solve(prob, at.SolverOptions(
@@ -118,7 +118,7 @@ def test_native_conic_matches_jax_on_grasp():
     """The ECOS/Mosek oracle role on a grasp instance with time-varying
     torque-balance equality + max-force inequality + two SOC friction
     cones per knot (grasp_benchmark.jl:36-62)."""
-    from altro_tpu.models import grasp
+    from altro_mpc.models import grasp
     N, tf = 31, 3.0
     o = grasp.make_grasp_object(N, tf)
     prob = grasp.grasp_problem(o, N, tf)
@@ -147,8 +147,8 @@ def test_native_conic_matches_altro_on_rocket(rocket_window):
 
 @pytest.fixture(scope="module")
 def trot_qp():
-    from altro_tpu.models.quadruped import config, controller
-    from altro_tpu.solver import knot_admm
+    from altro_mpc.models.quadruped import config, controller
+    from altro_mpc.solver import knot_admm
 
     cfg = config.MPCConfig(linearized_friction=True)
     prob, x_des = controller.build_mpc_problem(cfg)
@@ -161,8 +161,8 @@ def test_native_knot_matches_jax_iterations(trot_qp):
     """The C solver is the same algorithm at the same rho: identical
     iteration count (to the check cadence) and residual-level agreement on
     the trot QP."""
-    from altro_tpu.native import qp as nqp
-    from altro_tpu.solver import knot_admm
+    from altro_mpc.native import qp as nqp
+    from altro_mpc.solver import knot_admm
 
     jsol = knot_admm.solve(trot_qp, eps_abs=1e-4)
     w = nqp.knot_setup(trot_qp.qp, rho=0.1)
@@ -178,8 +178,8 @@ def test_native_knot_matches_jax_iterations(trot_qp):
 def test_native_knot_tight_solution_agreement(trot_qp):
     """At tight tolerance both implementations converge to the same QP
     optimum (unique for strongly convex QPs)."""
-    from altro_tpu.native import qp as nqp
-    from altro_tpu.solver import knot_admm
+    from altro_mpc.native import qp as nqp
+    from altro_mpc.solver import knot_admm
 
     jsol = knot_admm.solve(trot_qp, eps_abs=1e-8, max_iter=20000)
     w = nqp.knot_setup(trot_qp.qp, rho=0.1)
@@ -193,7 +193,7 @@ def test_native_knot_tight_solution_agreement(trot_qp):
 def test_native_knot_update_and_warm_start(trot_qp):
     """update() + warm solve: same optimum as a cold tight solve, fewer
     iterations than the zero start (the OSQP warm_start=true pattern)."""
-    from altro_tpu.native import qp as nqp
+    from altro_mpc.native import qp as nqp
 
     w = nqp.knot_setup(trot_qp.qp, rho=0.1)
     s0 = w.solve(eps_abs=1e-6, max_iter=20000)
@@ -210,9 +210,9 @@ def test_native_knot_update_and_warm_start(trot_qp):
 def test_native_knot_soc_blocks():
     """SOC friction-cone variant (ECOS role) matches the JAX knot ADMM at
     tight tolerance."""
-    from altro_tpu.models.quadruped import config, controller
-    from altro_tpu.native import qp as nqp
-    from altro_tpu.solver import knot_admm
+    from altro_mpc.models.quadruped import config, controller
+    from altro_mpc.native import qp as nqp
+    from altro_mpc.solver import knot_admm
 
     cfg = config.MPCConfig(linearized_friction=False)
     prob, x_des = controller.build_mpc_problem(cfg)
@@ -231,7 +231,7 @@ def test_native_knot_polish(trot_qp):
     converged LOOSE solve (eps 1e-3) with polish=True must land near-exact
     residuals and match a tight no-polish solve's controls — the mechanism
     behind the reference OSQP's quality at speed (OSQPParams.jl:127-128)."""
-    from altro_tpu.native import qp as nqp
+    from altro_mpc.native import qp as nqp
 
     w = nqp.knot_setup(trot_qp.qp, rho=0.1)
     tight = w.solve(eps_abs=1e-9, max_iter=50000)

@@ -1,14 +1,13 @@
 """OSQP-reference oracle (solver/osqp_ref.py) correctness.
 
 The oracle reimplements the published OSQP algorithm (the reference's
-timed QP solver, OSQPParams.jl:127-128) for the trot-QP floor study
-(tools/exp_osqp_oracle.py); these tests pin it against the repo's two
-independent QP solvers.
+timed QP solver, OSQPParams.jl:127-128) for the trot-QP floor study;
+these tests pin it against the repo's two independent QP solvers.
 """
 import numpy as np
 import pytest
 
-from altro_tpu.solver.osqp_ref import OSQPRef
+from altro_mpc.solver.osqp_ref import OSQPRef
 
 
 def _box_qp(seed=0, n=24, m=40, n_eq=8):
@@ -24,7 +23,7 @@ def _box_qp(seed=0, n=24, m=40, n_eq=8):
 
 
 def test_matches_native_admm_oracle():
-    native = pytest.importorskip("altro_tpu.native")
+    native = pytest.importorskip("altro_mpc.native")
     if not native.available():
         pytest.skip("native oracle unavailable")
     P, q, A, l, u = _box_qp()

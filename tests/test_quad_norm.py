@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
+import altro_mpc as at
 
 
 def test_quad_norm_binds_like_soc():
@@ -46,7 +46,7 @@ def test_naive_rocket_cold_solve():
     """SOC-vs-naive rocket comparison (run_simple_rocket.jl:72-102): the
     naive quadratic-constraint formulation solves the same problem, typically
     needing more iterations."""
-    from altro_tpu.models import rocket
+    from altro_mpc.models import rocket
     N = 151
     kw = dict(N=N, tf=(N - 1) * 0.1)
     opts = at.SolverOptions(cost_tolerance=1e-6, gradient_tolerance=1e-8,

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.models.quadruped import (config, controller, gait, kinematics,
+import altro_mpc as at
+from altro_mpc.models.quadruped import (config, controller, gait, kinematics,
                                         planner, srb)
 
 OPTS = at.SolverOptions(cost_tolerance=1e-4, constraint_tolerance=1e-4,
@@ -129,7 +129,7 @@ def test_altro_vs_admm_qp_same_forces(mpc_scenario):
         fz = np.maximum(F[:, :, 2], 0.0)
         assert np.all(np.abs(F[:, :, 0]) <= mu * fz + 1e-3)
         assert np.all(np.abs(F[:, :, 1]) <= mu * fz + 1e-3)
-    from altro_tpu.models.quadruped.srb import linearize_horizon
+    from altro_mpc.models.quadruped.srb import linearize_horizon
     dyn = linearize_horizon(x_ref, jnp.zeros((cfg.N, 12)), foot_locs,
                             contacts, cfg.dynamics_discretization)
     prob_k = prob.replace(dynamics=dyn, x0=x_curr)

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.models import random_linear as rl
-from altro_tpu.mpc import run_mpc, run_mpc_lockstep
+import altro_mpc as at
+from altro_mpc.models import random_linear as rl
+from altro_mpc.mpc import run_mpc, run_mpc_lockstep
 
 OPTS = at.SolverOptions(
     cost_tolerance=1e-4,
@@ -71,7 +71,7 @@ def test_shared_k_step_matches_per_lane_k():
     """The batched-driver step variant (shared_k=True: window index as an
     unbatched argument, so the tracking retarget is computed once per step)
     must reproduce the per-lane-k step exactly."""
-    from altro_tpu.mpc import make_mpc_step
+    from altro_mpc.mpc import make_mpc_step
 
     prob, prob_mpc, X_track, U_track = _make_setup()
     B, T = 4, 5
@@ -128,8 +128,8 @@ def test_xws_corrector_is_exact_rollout():
     """The shifted-X seam correction must reproduce the warm-start init
     rollout exactly (up to f64 matmul reassociation) for LTI windows, and
     decline (return None) for genuinely time-varying stacks."""
-    from altro_tpu.dynamics import LTVDynamics
-    from altro_tpu.mpc import _xws_corrector, shift_fill
+    from altro_mpc.dynamics import LTVDynamics
+    from altro_mpc.mpc import _xws_corrector, shift_fill
 
     prob, prob_mpc, X_track, U_track = _make_setup(seed=3)
     dyn = prob_mpc.dynamics

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import altro_tpu as at
-from altro_tpu.models import random_linear as rl
-from altro_tpu.mpc import shift_fill
-from altro_tpu.parallel import make_scenario_mesh, sharded_mpc_step, sharded_solve
+import altro_mpc as at
+from altro_mpc.models import random_linear as rl
+from altro_mpc.mpc import shift_fill
+from altro_mpc.parallel import make_scenario_mesh, sharded_mpc_step, sharded_solve
 
 OPTS = at.SolverOptions(penalty_initial=1e3, penalty_scaling=100.0,
                         reset_duals=False)
@@ -49,8 +49,8 @@ def test_sharded_solve_matches_vmap(setup):
 def rocket_window():
     """Small feasible rocket SOC tracking window (thrust/angle/glideslope
     cones all present) for the conic sharding cases."""
-    from altro_tpu.models import rocket
-    from altro_tpu.mpc import gen_tracking_mpc
+    from altro_mpc.models import rocket
+    from altro_mpc.mpc import gen_tracking_mpc
 
     N = 41
     prob = rocket.rocket_problem(N=N, tf=(N - 1) * 0.05)
@@ -72,7 +72,7 @@ def rocket_window():
 
 def test_sharded_conic_solve_matches_vmap(rocket_window):
     """SOC-constrained solves sharded over the mesh == the vmapped batch
-    (VERDICT r3 item 7: the conic path had never run under shard_map)."""
+    (the conic path had never run under shard_map before)."""
     pm, X_track, U_track, opts = rocket_window
     mesh = make_scenario_mesh()
     B = 16
@@ -91,11 +91,11 @@ def test_sharded_conic_solve_matches_vmap(rocket_window):
 def test_sharded_compacted_conic_step_matches_vmap(rocket_window):
     """The device-compacted CONIC MPC step under shard_map (compaction's
     argsort/gather/scatter runs PER SHARD) == the plain vmapped step —
-    exactly where a mesh bug would hide (VERDICT r3 item 7)."""
+    exactly where a mesh bug would hide."""
     from jax.sharding import PartitionSpec as P
 
-    from altro_tpu.mpc import (make_mpc_step, make_mpc_step_device_compacted)
-    from altro_tpu.parallel.sharding import BATCH_AXIS, shard_map
+    from altro_mpc.mpc import (make_mpc_step, make_mpc_step_device_compacted)
+    from altro_mpc.parallel.sharding import BATCH_AXIS, shard_map
 
     pm, X_track, U_track, opts = rocket_window
     mesh = make_scenario_mesh()

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import altro_tpu as at
-from altro_tpu.utils.lqr import finite_lqr
+import altro_mpc as at
+from altro_mpc.utils.lqr import finite_lqr
 
 
 def _random_system(key, n, m):
